@@ -6,7 +6,7 @@
 - benchmark_test.cpp configs: encode API-0/1 and decode at 12MP
   (4080x3072) and 3MP (2048x1536)
 
-Run on the TPU chip (default platform) or CPU (JAX_PLATFORMS=cpu).
+Run on the GPU (default platform) or CPU (JAX_PLATFORMS=cpu).
 Usage: python benchmarks/microbench.py [--quick]
 """
 
@@ -51,10 +51,10 @@ def decode_units_sweep(iters: int):
     with UHDR_DECODE_UNITS."""
     import jax
     import jax.numpy as jnp
-    from libultrahdr_dev_tpu.jpeg import device_decode as dd
-    from libultrahdr_dev_tpu.parallel import sharding
-    from libultrahdr_dev_tpu.container import mux
-    from libultrahdr_dev_tpu.jpeg.dct import dequant_idct
+    from libultrahdr_dev.jpeg import device_decode as dd
+    from libultrahdr_dev.parallel import sharding
+    from libultrahdr_dev.container import mux
+    from libultrahdr_dev.jpeg.dct import dequant_idct
 
     print(f"device: {jax.devices()[0]}")
     w, h = 3840, 2160
@@ -104,10 +104,10 @@ def decode_emit_sweep(iters: int):
     pins UHDR_DECODE_EMIT (+ UHDR_DECODE_UNITS) process-wide."""
     import jax
     import jax.numpy as jnp
-    from libultrahdr_dev_tpu.jpeg import device_decode as dd
-    from libultrahdr_dev_tpu.parallel import sharding
-    from libultrahdr_dev_tpu.container import mux
-    from libultrahdr_dev_tpu.jpeg.dct import dequant_idct
+    from libultrahdr_dev.jpeg import device_decode as dd
+    from libultrahdr_dev.parallel import sharding
+    from libultrahdr_dev.container import mux
+    from libultrahdr_dev.jpeg.dct import dequant_idct
 
     print(f"device: {jax.devices()[0]}")
     w, h = 3840, 2160
@@ -165,6 +165,9 @@ def main():
                          "print winner")
     args = ap.parse_args()
     iters = 3 if args.quick else 10
+    from libultrahdr_dev.utils import jaxcache
+
+    jaxcache.configure()
 
     if args.decode_units_sweep:
         return decode_units_sweep(max(iters // 2, 3))
@@ -172,10 +175,10 @@ def main():
         return decode_emit_sweep(max(iters // 2, 3))
 
     import jax
-    from libultrahdr_dev_tpu.ops import gainmap as gm
-    from libultrahdr_dev_tpu.jpegr import JpegR
-    from libultrahdr_dev_tpu.parallel import sharding
-    from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+    from libultrahdr_dev.ops import gainmap as gm
+    from libultrahdr_dev.jpegr import JpegR
+    from libultrahdr_dev.parallel import sharding
+    from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                            OutputFormat, PixelFormat,
                                            RawImage)
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Batched JPEG/R serving loop — the TPU-native analog of the
-reference demo app's encode/decode driver (examples/ultrahdr_app.cpp).
+"""Batched JPEG/R serving loop — the batched analog of the reference
+demo app's encode/decode driver (examples/ultrahdr_app.cpp).
 
 Three stages stay in flight, the same pattern bench.py measures:
 
@@ -8,7 +8,7 @@ Three stages stay in flight, the same pattern bench.py measures:
   main thread     : upload + fused device encode/decode of batch N
   fetch thread    : packed readback + native unpack of batch N-1
 
-Run on the TPU (default backend) with synthetic 4K frames:
+Run on the GPU (default backend) with synthetic 4K frames:
 
     python examples/serving_loop.py
 
@@ -63,7 +63,10 @@ def main(argv=None):
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from libultrahdr_dev_tpu.parallel import sharding
+    from libultrahdr_dev.parallel import sharding
+    from libultrahdr_dev.utils import jaxcache
+
+    jaxcache.configure()
 
     n, h, w = args.batch, args.height, args.width
     ys, uvs = synth_p010(n, h, w)
@@ -77,28 +80,22 @@ def main(argv=None):
 
     def fetch(out, scalars=None):
         if use_ha and scalars is not None:
-            from libultrahdr_dev_tpu.parallel import packio
-
-            comp, _ = packio.fetch_planes_u8(out)
-            if comp is None:
-                import numpy as np
-
-                comp = np.asarray(out)
             return sharding.apply_planes_host(
-                comp, scalars, h, w, gh, gw, out_fmt)
+                sharding.fetch_planes(out), scalars, h, w, gh, gw,
+                out_fmt)
         return (sharding.fetch_f16_packed if args.f16
                 else sharding.fetch_1010102_packed)(out)
 
     def pack_and_upload():
-        # Stage 1 includes the h2d upload so the next batch's link
-        # time hides under this batch's device work (in a real service
+        # Stage 1 includes the h2d upload so the next batch's transfer
+        # hides under this batch's device work (in a real service
         # the next batch comes from the request queue; here the same
         # frames loop).
         pre = sharding.pack_p010_batch_host(ys, uvs)
         return sharding.upload_p010_batch(ys, uvs, None, pre)
 
     t_pix = []
-    # Two fetch workers let batch N's d2h drain (a link wait) overlap
+    # Two fetch workers let batch N's d2h drain (a transfer wait) overlap
     # batch N-1's native unpack (ctypes releases the GIL); futures
     # keep the consumption order.
     with ThreadPoolExecutor(1) as pack_pool, \
@@ -115,14 +112,12 @@ def main(argv=None):
             scalars = None
             if handoff is not None:
                 # Decode straight off the encoder's device-resident
-                # streams — no blob re-upload (the TPU analog of the
+                # streams — no blob re-upload (the analog of the
                 # reference's zero-copy in-process handoff,
                 # jpegr.cpp:167-247).
                 out = sharding.batched_decode_from_handoff(
                     handoff, dec_fmt, boost, mesh)
                 if use_ha and out is not None:
-                    import numpy as np
-
                     scalars = np.broadcast_to(
                         sharding.handoff_apply_scalars(handoff, boost),
                         (n, 4))

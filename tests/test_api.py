@@ -5,12 +5,12 @@ ultrahdr_api semantics."""
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu import (ColorGamut, ColorTransfer, CompressedImage,
+from libultrahdr_dev import (ColorGamut, ColorTransfer, CompressedImage,
                                  GainMapMetadata, PixelFormat, RawImage,
                                  UhdrDecoder, UhdrEncoder, UhdrError,
                                  is_uhdr_image)
-from libultrahdr_dev_tpu.api import BASE_IMG, HDR_IMG, SDR_IMG
-from libultrahdr_dev_tpu.container import mux
+from libultrahdr_dev.api import BASE_IMG, HDR_IMG, SDR_IMG
+from libultrahdr_dev.container import mux
 
 
 def p010(h=64, w=96, gamut=ColorGamut.BT2100, tf=ColorTransfer.HLG):
@@ -160,7 +160,7 @@ class TestDecoder:
 
 class TestEditor:
     def test_crop(self):
-        from libultrahdr_dev_tpu.ops import editor
+        from libultrahdr_dev.ops import editor
         img = yuv420(64, 96)
         img.planes["y"][:] = np.arange(96, dtype=np.uint8)[None, :]
         out = editor.crop(img, editor.CropEffect(10, 42, 4, 36))
@@ -169,7 +169,7 @@ class TestEditor:
         assert out.planes["u"].shape == (16, 16)
 
     def test_mirror(self):
-        from libultrahdr_dev_tpu.ops import editor
+        from libultrahdr_dev.ops import editor
         img = yuv420(4, 6)
         img.planes["y"][:] = np.arange(6, dtype=np.uint8)[None, :]
         out = editor.mirror(img, editor.MirrorEffect("horizontal"))
@@ -178,7 +178,7 @@ class TestEditor:
         np.testing.assert_array_equal(out2.planes["y"], img.planes["y"][::-1])
 
     def test_rotate(self):
-        from libultrahdr_dev_tpu.ops import editor
+        from libultrahdr_dev.ops import editor
         img = yuv420(4, 6)
         img.planes["y"][0, 0] = 7
         out = editor.rotate(img, editor.RotateEffect(90))
@@ -189,14 +189,14 @@ class TestEditor:
         assert out.planes["y"][-1, -1] == 7
 
     def test_resize(self):
-        from libultrahdr_dev_tpu.ops import editor
+        from libultrahdr_dev.ops import editor
         img = yuv420(8, 12)
         out = editor.resize(img, editor.ResizeEffect(6, 4))
         assert (out.width, out.height) == (6, 4)
         assert out.planes["u"].shape == (2, 3)
 
     def test_chain(self):
-        from libultrahdr_dev_tpu.ops import editor
+        from libultrahdr_dev.ops import editor
         img = yuv420(16, 16)
         out = editor.apply_effects(img, [
             editor.CropEffect(0, 8, 0, 8),
@@ -209,7 +209,7 @@ class TestEditor:
 
 class TestCli:
     def test_encode_decode_cycle(self, tmp_path):
-        from libultrahdr_dev_tpu import cli
+        from libultrahdr_dev import cli
         img = p010(64, 96)
         raw = np.concatenate([np.asarray(img.planes["y"]).ravel(),
                               np.asarray(img.planes["uv"]).ravel()])
@@ -229,8 +229,8 @@ class TestCli:
 
 
 def test_enc_set_output_format():
-    from libultrahdr_dev_tpu.api import UhdrEncoder
-    from libultrahdr_dev_tpu.types import UhdrError
+    from libultrahdr_dev.api import UhdrEncoder
+    from libultrahdr_dev.types import UhdrError
 
     enc = UhdrEncoder()
     enc.set_output_format("jpg")
@@ -239,8 +239,8 @@ def test_enc_set_output_format():
 
 
 def test_enc_compressed_hdr_intent_accepted():
-    from libultrahdr_dev_tpu.api import HDR_IMG, UhdrEncoder
-    from libultrahdr_dev_tpu.types import CompressedImage, UhdrError
+    from libultrahdr_dev.api import HDR_IMG, UhdrEncoder
+    from libultrahdr_dev.types import CompressedImage, UhdrError
 
     enc = UhdrEncoder()
     enc.set_compressed_image(CompressedImage(data=b"\xff\xd8junk"),
@@ -264,7 +264,7 @@ def test_cli_dash_h_is_height(tmp_path):
     out = tmp_path / "out.jpegr"
     env = dict(__import__("os").environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
-        [sys.executable, "-m", "libultrahdr_dev_tpu.cli", "-m", "0",
+        [sys.executable, "-m", "libultrahdr_dev.cli", "-m", "0",
          "-p", str(p010_path), "-w", str(w), "-h", str(h), "-C", "2",
          "-t", "1", "-z", str(out)],
         capture_output=True, text=True, env=env, cwd="/root/repo")
@@ -278,8 +278,8 @@ def test_raw_image_from_strided_buffers():
     and encode identically to dense ones."""
     import numpy as np
 
-    from libultrahdr_dev_tpu.jpegr import JpegR
-    from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+    from libultrahdr_dev.jpegr import JpegR
+    from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                            PixelFormat, RawImage,
                                            UhdrError)
 
@@ -326,8 +326,8 @@ class TestStableVsClassParity:
                                        ColorGamut.BT2100])
     @pytest.mark.parametrize("tf", [ColorTransfer.HLG, ColorTransfer.PQ])
     def test_encode_decode_byte_identity(self, gamut, tf):
-        from libultrahdr_dev_tpu.jpegr import JpegR
-        from libultrahdr_dev_tpu.types import OutputFormat
+        from libultrahdr_dev.jpegr import JpegR
+        from libultrahdr_dev.types import OutputFormat
 
         img = p010(h=48, w=64, gamut=gamut, tf=tf)
         blob_stable = (UhdrEncoder().set_raw_image(img, HDR_IMG)

@@ -13,7 +13,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.jpeg import arith
+from libultrahdr_dev.jpeg import arith
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORACLE = "/tmp/arith_oracle"
@@ -359,7 +359,7 @@ class TestCodecIntegration:
 
     @pytest.mark.parametrize("rst", [0, 2])
     def test_arith_encode_matches_huffman_coefs(self, rst):
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         planes = self._planes()
         a = codec.encode_jpeg(planes, 90, restart_interval=rst,
                               arithmetic=True)
@@ -372,7 +372,7 @@ class TestCodecIntegration:
         assert len(a) < len(hj)
 
     def test_arith_encode_gray(self):
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         y = _synth_gray(64, 48, seed=9)
         a = codec.encode_jpeg({"y": y}, 85, arithmetic=True)
         hj = codec.encode_jpeg({"y": y}, 85)
@@ -384,14 +384,14 @@ class TestCodecIntegration:
 
         from PIL import Image
 
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         blob = codec.encode_jpeg(self._planes(), 90, arithmetic=True)
         im = Image.open(io.BytesIO(blob))
         im.load()
         assert im.size == (64, 48)
 
     def test_full_decode_pixels_close_to_huffman(self):
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         planes = self._planes(seed=4)
         a = codec.decode_jpeg(codec.encode_jpeg(planes, 90,
                                                 arithmetic=True))
@@ -403,9 +403,9 @@ class TestCodecIntegration:
         """API-4 mux with an arithmetic-coded base JPEG must decode
         through the full JPEG/R path (the reference inherits this from
         libjpeg's transparent SOF9 support)."""
-        from libultrahdr_dev_tpu.jpeg import codec
-        from libultrahdr_dev_tpu.jpegr import JpegR
-        from libultrahdr_dev_tpu.types import GainMapMetadata
+        from libultrahdr_dev.jpeg import codec
+        from libultrahdr_dev.jpegr import JpegR
+        from libultrahdr_dev.types import GainMapMetadata
         planes = self._planes(seed=6)
         base = codec.encode_jpeg(planes, 92, arithmetic=True)
         gmap = codec.encode_jpeg(
@@ -421,7 +421,7 @@ class TestCodecIntegration:
 
     @needs_oracle
     def test_oracle_decodes_codec_arith_output(self, tmp_path):
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         blob = codec.encode_jpeg(self._planes(seed=5), 88,
                                  restart_interval=3, arithmetic=True)
         jp = str(tmp_path / "e.jpg")
@@ -439,7 +439,7 @@ class TestCodecIntegration:
                                           (1, 3)])
     def test_decode_jpeg_coefs_color_conformance(self, prog, rst,
                                                  tmp_path):
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         w, h = 80, 64
         g = _synth_gray(w, h, seed=2)
         rgb = np.stack([g, np.roll(g, 5, 1), np.roll(g, 9, 0)], -1)
@@ -460,8 +460,8 @@ class TestCodecIntegration:
 
 class TestArithFuzz:
     def test_mutated_streams_never_crash(self):
-        from libultrahdr_dev_tpu.jpeg import codec
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.jpeg import codec
+        from libultrahdr_dev.types import UhdrError
         rng = np.random.default_rng(17)
         y = _synth_gray(48, 32, seed=13)
         blob = bytearray(codec.encode_jpeg({"y": y}, 80,
@@ -476,8 +476,8 @@ class TestArithFuzz:
                 pass
 
     def test_truncations_never_crash(self):
-        from libultrahdr_dev_tpu.jpeg import codec
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.jpeg import codec
+        from libultrahdr_dev.types import UhdrError
         y = _synth_gray(48, 32, seed=14)
         blob = codec.encode_jpeg({"y": y}, 80, restart_interval=2,
                                  arithmetic=True)
@@ -488,8 +488,8 @@ class TestArithFuzz:
                 pass
 
     def test_bad_dac_rejected(self):
-        from libultrahdr_dev_tpu.jpeg import codec
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.jpeg import codec
+        from libultrahdr_dev.types import UhdrError
         y = _synth_gray(32, 32, seed=15)
         blob = bytearray(codec.encode_jpeg({"y": y}, 80,
                                            arithmetic=True))
@@ -550,7 +550,7 @@ class TestNativePythonParity:
         # Build a progressive arithmetic stream with libjpeg-free
         # tools: encode DC-first/AC-first/refine scans with the Python
         # encoder primitives, then decode through both driver paths.
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         y = _synth_gray(48, 40, seed=23)
         blob = codec.encode_jpeg({"y": y}, 80, arithmetic=True)
         ref = codec.decode_jpeg_coefs(blob).comps[0][0]

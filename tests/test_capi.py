@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from libultrahdr_dev_tpu import capi
-from libultrahdr_dev_tpu.api import HDR_IMG
-from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+from libultrahdr_dev import capi
+from libultrahdr_dev.api import HDR_IMG
+from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                        PixelFormat, RawImage)
 
 

@@ -1,4 +1,4 @@
-"""Golden tests for libultrahdr_dev_tpu.ops.color.
+"""Golden tests for libultrahdr_dev.ops.color.
 
 Expected values are computed from the published standards' analytic
 forms (IEC 61966-2-1, ITU-R BT.2100-2, SMPTE EG 432-1) in float64
@@ -11,7 +11,7 @@ import math
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.ops import color
+from libultrahdr_dev.ops import color
 
 
 def arr(*vals):

@@ -10,8 +10,8 @@ import struct
 
 import pytest
 
-from libultrahdr_dev_tpu.container import icc, jfif, mpf, mux, xmp
-from libultrahdr_dev_tpu.types import GainMapMetadata, UhdrError
+from libultrahdr_dev.container import icc, jfif, mpf, mux, xmp
+from libultrahdr_dev.types import GainMapMetadata, UhdrError
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 REF_DATA = "/root/reference/tests/data"

@@ -7,11 +7,11 @@ import pytest
 
 import jax
 
-from libultrahdr_dev_tpu.container import mux
-from libultrahdr_dev_tpu.jpeg import codec, device_decode as dd
-from libultrahdr_dev_tpu.jpegr import JpegR
-from libultrahdr_dev_tpu.parallel import sharding
-from libultrahdr_dev_tpu.types import OutputFormat
+from libultrahdr_dev.container import mux
+from libultrahdr_dev.jpeg import codec, device_decode as dd
+from libultrahdr_dev.jpegr import JpegR
+from libultrahdr_dev.parallel import sharding
+from libultrahdr_dev.types import OutputFormat
 
 
 def _encode_one(H, W, seed=0):
@@ -86,7 +86,7 @@ class TestForeignDeviceDecode:
 
     @pytest.fixture(autouse=True)
     def _require_native(self):
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         if native.get_lib() is None:
             pytest.skip("native codec unavailable")
 
@@ -231,8 +231,8 @@ class TestForeignDeviceDecode:
         # single-frame decode of each blob.
         import jax as _jax
 
-        from libultrahdr_dev_tpu.container import mux as _mux
-        from libultrahdr_dev_tpu.types import GainMapMetadata
+        from libultrahdr_dev.container import mux as _mux
+        from libultrahdr_dev.types import GainMapMetadata
         mesh = sharding.default_mesh(_jax.devices()[:1])
         blobs = []
         for seed in (4, 5):
@@ -321,7 +321,7 @@ class TestTableKeyEdgeCases:
     def test_serialize_256_value_dht_roundtrip(self):
         """A legal DHT may carry exactly 256 values (sum(bits)==256);
         the table key must survive it (2-byte counts)."""
-        from libultrahdr_dev_tpu.jpeg.device_decode import (
+        from libultrahdr_dev.jpeg.device_decode import (
             chains_from_key, serialize_tables)
 
         bits = [0] * 14 + [1, 255]
@@ -332,7 +332,7 @@ class TestTableKeyEdgeCases:
         assert len(chains[0][0]) == 256
 
     def test_min_code_len_from_key(self):
-        from libultrahdr_dev_tpu.jpeg.device_decode import (
+        from libultrahdr_dev.jpeg.device_decode import (
             min_code_len_from_key, serialize_tables)
 
         assert min_code_len_from_key(None) == 2
@@ -347,8 +347,8 @@ class TestTableKeyEdgeCases:
         """A scan referencing an all-zero DHT must fall back (return
         None), not crash at kernel construction."""
         import numpy as np
-        from libultrahdr_dev_tpu.jpeg import codec, tables
-        from libultrahdr_dev_tpu.jpeg.device_decode import (
+        from libultrahdr_dev.jpeg import codec, tables
+        from libultrahdr_dev.jpeg.device_decode import (
             parse_device_stream)
 
         y = np.full((16, 16), 128, np.uint8)
@@ -423,7 +423,7 @@ class TestEmitModes:
 
     @pytest.mark.parametrize("units", [1, 2, 3])
     def test_color_and_gray_bit_exact(self, blob, units):
-        from libultrahdr_dev_tpu.container import mux
+        from libultrahdr_dev.container import mux
         primary, gmap = mux.extract_primary_and_gainmap(blob)
         for data in (primary, gmap):
             ds = dd.parse_device_stream(data)
@@ -439,7 +439,7 @@ class TestEmitModes:
 
         from PIL import Image
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         if native.get_lib() is None:
             pytest.skip("native scan unavailable")
         rng = np.random.default_rng(5)
@@ -452,7 +452,7 @@ class TestEmitModes:
         assert ds is not None and ds.start_bits is not None
         ch = jax.numpy.asarray(ds.chunks)
         sb = jax.numpy.asarray(ds.start_bits)
-        from libultrahdr_dev_tpu.jpeg.device_decode import (
+        from libultrahdr_dev.jpeg.device_decode import (
             chains_from_key, min_code_len_from_key)
         self._both(ch, ds.restart_interval, ds.mcus_x * ds.mcus_y,
                    ds.gray, 2, chains=chains_from_key(ds.tables_key),

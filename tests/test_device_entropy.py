@@ -5,7 +5,7 @@ restart-marker path, plus edge cases and overflow handling."""
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.jpeg import codec, device_entropy as de, tables
+from libultrahdr_dev.jpeg import codec, device_entropy as de, tables
 
 HOST_TABLES = dict(
     dc_tables=[(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
@@ -135,7 +135,7 @@ class TestYcbcrRstEncode:
 
     def test_device_422_stream_decodes_on_device(self, monkeypatch):
         # full circle: device 4:2:2 encode -> device (RST-lane) decode
-        from libultrahdr_dev_tpu.jpeg import device_decode as dd
+        from libultrahdr_dev.jpeg import device_decode as dd
         rng = np.random.default_rng(9)
         h, w = 64, 112
         planes = {"y": rng.integers(0, 256, (h, w), np.uint8),

@@ -7,10 +7,10 @@ deterministic sweeps."""
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.container import mux, xmp, jfif, icc
-from libultrahdr_dev_tpu.jpeg import codec
-from libultrahdr_dev_tpu.jpegr import JpegR
-from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+from libultrahdr_dev.container import mux, xmp, jfif, icc
+from libultrahdr_dev.jpeg import codec
+from libultrahdr_dev.jpegr import JpegR
+from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                        OutputFormat, PixelFormat, RawImage,
                                        UhdrError)
 
@@ -130,7 +130,7 @@ class TestSubsamplingEncodeFuzz:
 
     @pytest.mark.parametrize("seed", range(4))
     def test_random_subsampled_roundtrip(self, seed):
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
 
         rng = np.random.default_rng(300 + seed)
         hs, vs = [(2, 1), (1, 1)][seed % 2]
@@ -191,7 +191,7 @@ class TestEntropyDecoderFuzz:
     fallback behavior)."""
 
     def _tables(self):
-        from libultrahdr_dev_tpu.jpeg import tables
+        from libultrahdr_dev.jpeg import tables
         return ([(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS), None,
                  None, None],
                 [(tables.AC_LUMA_BITS, tables.AC_LUMA_VALS), None,
@@ -217,8 +217,8 @@ class TestEntropyDecoderFuzz:
     def test_python_and_native_agree_on_garbage(self, seed):
         """The C++ and Python decoders accept/reject the same garbage
         (differing only in which block they fail at)."""
-        from libultrahdr_dev_tpu.jpeg import huffman
-        from libultrahdr_dev_tpu.jpeg.native import get_lib
+        from libultrahdr_dev.jpeg import huffman
+        from libultrahdr_dev.jpeg.native import get_lib
         if get_lib() is None:
             pytest.skip("native codec unavailable")
         dct, act = self._tables()
@@ -247,8 +247,8 @@ class TestIsobmffFuzz:
     front end must reject arbitrary/mutated boxes cleanly."""
 
     def _poke(self, data: bytes):
-        from libultrahdr_dev_tpu.container import isobmff as iso
-        from libultrahdr_dev_tpu.heifr import HeifR, heif_available
+        from libultrahdr_dev.container import isobmff as iso
+        from libultrahdr_dev.heifr import HeifR, heif_available
         try:
             iso.parse_heif(data)
         except UhdrError:
@@ -293,7 +293,7 @@ class TestMpfIccStructuralFuzz:
     """Structural (field-level) mutations of MPF and ICC payloads."""
 
     def test_mpf_mutations(self):
-        from libultrahdr_dev_tpu.container import mpf
+        from libultrahdr_dev.container import mpf
         base = bytearray(mpf.generate_mpf(1000, 0, 500, 1500))
         rng = np.random.default_rng(11)
         for _ in range(24):
@@ -332,13 +332,13 @@ class TestExifGridFuzz:
     never crash the parser, only raise UhdrError or return None."""
 
     def _tmap_with_exif(self, exif_payload: bytes) -> bytes:
-        from libultrahdr_dev_tpu.container import isobmff as iso
+        from libultrahdr_dev.container import isobmff as iso
         base = [iso.OutItem("hvc1", b"\x00" * 64,
                             [iso.ispe_prop(16, 16)])]
         gmap = [iso.OutItem("hvc1", b"\x00" * 32,
                             [iso.ispe_prop(4, 4)])]
         md = iso.encode_tmap_metadata(
-            __import__("libultrahdr_dev_tpu.types",
+            __import__("libultrahdr_dev.types",
                        fromlist=["GainMapMetadata"]).GainMapMetadata(
                 max_content_boost=4.0, min_content_boost=1.0))
         blob = iso.build_tmap_container("heic", base, gmap, md,
@@ -348,7 +348,7 @@ class TestExifGridFuzz:
                             exif_payload[:6].ljust(6, b"\0"))
 
     def test_exif_payload_mutations(self):
-        from libultrahdr_dev_tpu.container import isobmff as iso
+        from libultrahdr_dev.container import isobmff as iso
         rng = __import__("numpy").random.default_rng(0)
         for n in (0, 1, 3, 4, 5, 64):
             payload = bytes(rng.integers(0, 256, n, dtype="uint8"))
@@ -357,12 +357,12 @@ class TestExifGridFuzz:
                 hp = iso.parse_heif(blob)
                 iso.find_exif(blob, hp, None)
             except Exception as e:
-                from libultrahdr_dev_tpu.types import UhdrError
+                from libultrahdr_dev.types import UhdrError
                 assert isinstance(e, UhdrError), type(e)
 
     def test_exif_item_roundtrip_via_parser(self):
-        from libultrahdr_dev_tpu.container import isobmff as iso
-        from libultrahdr_dev_tpu.types import GainMapMetadata
+        from libultrahdr_dev.container import isobmff as iso
+        from libultrahdr_dev.types import GainMapMetadata
         exif = b"Exif\x00\x00MM\x00*" + bytes(range(20))
         base = [iso.OutItem("hvc1", b"\x00" * 64,
                             [iso.ispe_prop(16, 16)])]
@@ -381,7 +381,7 @@ class TestExifGridFuzz:
         assert hp.refs[("cdsc", exif_ids[0])] == [1]
 
     def test_grid_payload_variants(self):
-        from libultrahdr_dev_tpu.container import isobmff as iso
+        from libultrahdr_dev.container import isobmff as iso
         assert iso.grid_payload(2, 3, 100, 50) == bytes(
             [0, 0, 1, 2]) + (100).to_bytes(2, "big") + (50).to_bytes(
                 2, "big")
@@ -391,20 +391,20 @@ class TestExifGridFuzz:
 
 class TestPackioNativeFuzz:
     """The native pack-layer entry points (jpeg/native/packio.cpp)
-    consume buffers that crossed the relay link: they must reject or
+    consume buffers fetched from the device: they must reject or
     deterministically survive arbitrary bytes, never crash."""
 
     @pytest.fixture(autouse=True)
     def _require_native(self):
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         if native.get_lib() is None:
             pytest.skip("native codec unavailable")
 
     def _call_unpack(self, bmap, blob, npads, n, h, w):
         import ctypes
 
-        from libultrahdr_dev_tpu.jpeg import native
-        from libultrahdr_dev_tpu.parallel import packio
+        from libultrahdr_dev.jpeg import native
+        from libultrahdr_dev.parallel import packio
         lib = native.get_lib()
         woffs = np.zeros(8, np.int64)
         acc = 0
@@ -428,7 +428,7 @@ class TestPackioNativeFuzz:
     def test_invalid_width_codes_rejected(self):
         # every byte outside {0} + FINE_WIDTHS must return -3, not
         # index out of the rank table (stack corruption pre-fix).
-        from libultrahdr_dev_tpu.parallel import packio
+        from libultrahdr_dev.parallel import packio
         n, h, w = 1, 32, 128
         nseg = 3 * n * h * ((w + 63) // 64)
         npads = tuple(32 for _ in range(8))
@@ -444,7 +444,7 @@ class TestPackioNativeFuzz:
     def test_random_valid_widths_survive(self):
         # random VALID width codes with a random blob: garbage in,
         # deterministic garbage out, no crash, rc == 0.
-        from libultrahdr_dev_tpu.parallel import packio
+        from libultrahdr_dev.parallel import packio
         rng = np.random.default_rng(7)
         n, h, w = 1, 64, 200
         nseg = 3 * n * h * ((w + 63) // 64)
@@ -464,8 +464,8 @@ class TestPackioNativeFuzz:
     def _call_rice(self, kmap, uwmap, blob, n, h, w):
         import ctypes
 
-        from libultrahdr_dev_tpu.jpeg import native
-        from libultrahdr_dev_tpu.parallel import packio
+        from libultrahdr_dev.jpeg import native
+        from libultrahdr_dev.parallel import packio
         lib = native.get_lib()
         if getattr(lib, "uhdr_rice_unpack", None) is None:
             pytest.skip("native rice unpack unavailable")
@@ -501,7 +501,7 @@ class TestPackioNativeFuzz:
         # random valid-range k/uw maps with a random blob: the unary
         # bitmaps rarely carry exactly 256 terminators, so -5 (fail
         # closed) is the common outcome; 0 is fine; crashes are not.
-        from libultrahdr_dev_tpu.parallel import packio
+        from libultrahdr_dev.parallel import packio
         n, h, w = 1, 32, 512
         nseg = 3 * n * h * ((w + 255) // 256)
         for seed in range(5):
@@ -517,7 +517,7 @@ class TestPackioNativeFuzz:
             assert rc in (0, -5), (seed, rc)
 
     def test_rice_invalid_codes_rejected(self):
-        from libultrahdr_dev_tpu.parallel import packio
+        from libultrahdr_dev.parallel import packio
         n, h, w = 1, 32, 256
         nseg = 3 * n * h
         kmap = np.zeros(nseg, np.uint8)
@@ -536,7 +536,7 @@ class TestPackioNativeFuzz:
         # numpy packer and unpacks exactly on device.
         import jax
 
-        from libultrahdr_dev_tpu.parallel import packio
+        from libultrahdr_dev.parallel import packio
         rng = np.random.default_rng(11)
         arr = rng.integers(0, 1024, (64, 300)).astype(np.uint16)
         p = packio._pack_plane_native(arr, 64, 300)
@@ -565,8 +565,8 @@ class TestForeignScanFuzz:
         return b.getvalue()
 
     def test_mutated_entropy_segment(self):
-        from libultrahdr_dev_tpu.jpeg import device_decode as dd
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import device_decode as dd
+        from libultrahdr_dev.jpeg import native
         if native.get_lib() is None:
             pytest.skip("native codec unavailable")
         blob = self._foreign_jpeg()

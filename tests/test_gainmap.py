@@ -10,8 +10,8 @@ import math
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.ops import color, gainmap
-from libultrahdr_dev_tpu.types import GainMapMetadata
+from libultrahdr_dev.ops import color, gainmap
+from libultrahdr_dev.types import GainMapMetadata
 
 
 def make_p010(h, w, y10=600, u10=512, v10=512):
@@ -224,7 +224,7 @@ class TestApplyGainMap:
         assert out.max() <= 1023
 
     def test_metadata_validation(self):
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.types import UhdrError
         h, w = 8, 8
         y8, u8, v8 = make_yuv420(h, w)
         gmap = np.zeros((2, 2), np.uint8)
@@ -238,7 +238,7 @@ class TestApplyGainMap:
             gainmap.apply_gainmap(y8, u8, v8, gmap, bad2, "hdr_linear", 4.0)
 
     def test_scale_mismatch_rejected(self):
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.types import UhdrError
         y8, u8, v8 = make_yuv420(8, 8)
         with pytest.raises(UhdrError):
             gainmap.apply_gainmap(y8, u8, v8, np.zeros((2, 3), np.uint8),

@@ -4,9 +4,9 @@ plus decode of the repo's sample_heicr.heic fixture)."""
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.container import isobmff as iso, libheif as lh
-from libultrahdr_dev_tpu.heifr import HeifR, heif_available
-from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+from libultrahdr_dev.container import isobmff as iso, libheif as lh
+from libultrahdr_dev.heifr import HeifR, heif_available
+from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                        OutputFormat, PixelFormat,
                                        RawImage)
 
@@ -97,7 +97,7 @@ def test_no_silent_gainmap_loss(monkeypatch):
 
 
 def test_tmap_metadata_roundtrip():
-    from libultrahdr_dev_tpu.types import GainMapMetadata
+    from libultrahdr_dev.types import GainMapMetadata
     md = GainMapMetadata(max_content_boost=4.926108, min_content_boost=1.0,
                          gamma=1.0, offset_sdr=0.0, offset_hdr=0.0,
                          hdr_capacity_min=1.0, hdr_capacity_max=4.926108)
@@ -131,7 +131,7 @@ def test_grid_encode_roundtrip(monkeypatch):
     decode reassembles them (SURVEY row 11 / heifr >4K gap). The
     shrunken limit exercises 2x2 luma tiling + a tiled gain map
     cheaply; tile placement is proven by a spatial gradient."""
-    from libultrahdr_dev_tpu import heifr as heifr_mod
+    from libultrahdr_dev import heifr as heifr_mod
     monkeypatch.setattr(heifr_mod, "GRID_TILE_LIMIT", 64)
     h, w = 96, 160  # 2x3 tile lattice at limit 64
     y = np.add.outer(np.linspace(100, 600, h),

@@ -15,11 +15,11 @@ import jax
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.jpeg import native
-from libultrahdr_dev_tpu.jpegr import JpegR
-from libultrahdr_dev_tpu.ops import gainmap as gm
-from libultrahdr_dev_tpu.parallel import packio, sharding
-from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+from libultrahdr_dev.jpeg import native
+from libultrahdr_dev.jpegr import JpegR
+from libultrahdr_dev.ops import gainmap as gm
+from libultrahdr_dev.parallel import packio, sharding
+from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                        PixelFormat, RawImage)
 
 REF_DATA = "/root/reference/tests/data"

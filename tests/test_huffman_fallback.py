@@ -7,12 +7,12 @@ import io
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.jpeg import codec
+from libultrahdr_dev.jpeg import codec
 
 
 @pytest.fixture
 def no_native(monkeypatch):
-    monkeypatch.setattr("libultrahdr_dev_tpu.jpeg.codec.get_lib",
+    monkeypatch.setattr("libultrahdr_dev.jpeg.codec.get_lib",
                         lambda: None)
 
 
@@ -31,7 +31,7 @@ def _planes(seed=0, w=48, h=40):
 def test_encode_matches_native():
     planes = _planes()
     native = codec.encode_jpeg(planes, quality=90)
-    import libultrahdr_dev_tpu.jpeg.codec as c
+    import libultrahdr_dev.jpeg.codec as c
     orig = c.get_lib
     try:
         c.get_lib = lambda: None
@@ -45,11 +45,11 @@ def test_decode_matches_native(no_native):
     planes = _planes(seed=1)
     jpg = codec.encode_jpeg(planes, quality=85, restart_interval=2)
     ref_planes = None
-    import libultrahdr_dev_tpu.jpeg.codec as c
+    import libultrahdr_dev.jpeg.codec as c
     # decode under fallback (no_native active)
     got = codec.decode_jpeg(jpg)
     # decode under native by restoring get_lib via the real module attr
-    from libultrahdr_dev_tpu.jpeg.native import get_lib as real
+    from libultrahdr_dev.jpeg.native import get_lib as real
     c.get_lib = real
     ref = codec.decode_jpeg(jpg)
     for a, b in zip(got.planes, ref.planes):
@@ -65,8 +65,8 @@ def test_progressive_decode_fallback(no_native):
                             subsampling=2)
     data = buf.getvalue()
     got = codec.decode_jpeg(data)
-    import libultrahdr_dev_tpu.jpeg.codec as c
-    from libultrahdr_dev_tpu.jpeg.native import get_lib as real
+    import libultrahdr_dev.jpeg.codec as c
+    from libultrahdr_dev.jpeg.native import get_lib as real
     c.get_lib = real
     ref = codec.decode_jpeg(data)
     for a, b in zip(got.planes, ref.planes):

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.jpeg import codec, tables
-from libultrahdr_dev_tpu.jpeg.dct import dequant_idct, fdct_quant
+from libultrahdr_dev.jpeg import codec, tables
+from libultrahdr_dev.jpeg.dct import dequant_idct, fdct_quant
 
 REF_DATA = "/root/reference/tests/data"
 
@@ -111,7 +111,7 @@ class TestRoundtrip:
         assert psnr(dec.planes[0], y) > 40
 
     def test_icc_embedded(self):
-        from libultrahdr_dev_tpu.container import icc as icc_mod
+        from libultrahdr_dev.container import icc as icc_mod
         y = smooth_plane(16, 16)
         profile = icc_mod.write_icc_profile("srgb", "p3")
         blob = codec.encode_jpeg({"y": y}, quality=90, icc=profile)
@@ -242,7 +242,7 @@ class TestProgressive:
 class TestErrors:
 
     def test_garbage_rejected(self):
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.types import UhdrError
         with pytest.raises(UhdrError):
             codec.decode_jpeg(b"\x00" * 100)
         with pytest.raises(UhdrError):
@@ -257,8 +257,8 @@ class TestMultiScanBaseline:
         """Author a 3-scan (Y)(Cb)(Cr) non-interleaved baseline JPEG
         from YUV420 planes using the framework's own entropy encoder."""
         import numpy as np
-        from libultrahdr_dev_tpu.jpeg import codec, tables
-        from libultrahdr_dev_tpu.jpeg.dct import fdct_quant
+        from libultrahdr_dev.jpeg import codec, tables
+        from libultrahdr_dev.jpeg.dct import fdct_quant
 
         ql = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, quality)
         qc = tables.scale_quant_table(tables.STD_CHROMINANCE_QUANT,
@@ -306,7 +306,7 @@ class TestMultiScanBaseline:
 
     def test_multiscan_matches_single_scan(self):
         import numpy as np
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
 
         rng = np.random.default_rng(3)
         w, h = 24, 20  # odd block counts: luma ceil-dims != MCU-padded
@@ -382,7 +382,7 @@ class TestSubsampling:
         assert psnr(dec.planes[0], y) > 38
 
     def test_explicit_sampling_validated(self):
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.types import UhdrError
         y = smooth_plane(32, 32)
         u_full = smooth_plane(32, 32, seed=1)
         # full-size chroma + a request for 4:2:0 must raise UhdrError,
@@ -396,7 +396,7 @@ class TestSubsampling:
                               quality=90, sampling=(4, 1))
 
     def test_bad_chroma_geometry_rejected(self):
-        from libultrahdr_dev_tpu.types import UhdrError
+        from libultrahdr_dev.types import UhdrError
         y = smooth_plane(32, 32)
         u = smooth_plane(32, 16)  # 4:2:2 u ...
         v = smooth_plane(16, 16)  # ... mismatched with 4:2:0 v

@@ -8,11 +8,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.jpegr import JpegR
-from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+from libultrahdr_dev.jpegr import JpegR
+from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                        GainMapMetadata, OutputFormat,
                                        PixelFormat, RawImage, UhdrError)
-from libultrahdr_dev_tpu.container import mux
+from libultrahdr_dev.container import mux
 
 REF_DATA = "/root/reference/tests/data"
 ORACLE = "/tmp/oracle/golden"
@@ -363,7 +363,7 @@ class TestInputReferencedInterop:
 
     @staticmethod
     def _ideal_lum(yp, uvp, gamut_str, tn):
-        from libultrahdr_dev_tpu.ops import color, gainmap as gm
+        from libultrahdr_dev.ops import color, gainmap as gm
         hy, hu, hv = gm.p010_to_float(yp, uvp)
         hu = gm._upsample2(hu)[:H, :W]
         hv = gm._upsample2(hv)[:H, :W]
@@ -376,7 +376,7 @@ class TestInputReferencedInterop:
     @pytest.mark.parametrize("gn,gs,gamut,tn,tf", CONFIGS)
     def test_ours_as_faithful_as_reference_self(self, gn, gs, gamut,
                                                 tn, tf, tmp_path):
-        from libultrahdr_dev_tpu.ops import color
+        from libultrahdr_dev.ops import color
         if not os.path.exists(ORACLE):
             pytest.skip("oracle unavailable")
         golden_raw = os.path.join(GOLDENS, f"dec0_{gn}_{tn}_f16.raw.gz")

@@ -5,7 +5,7 @@ fallbacks used by the bench/serving paths."""
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.parallel import packio, sharding
+from libultrahdr_dev.parallel import packio, sharding
 
 
 def smooth_plane(h, w, seed=0):
@@ -184,7 +184,7 @@ class TestRctBatchFetch:
     def test_native_and_numpy_unpack_agree(self, monkeypatch):
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         if native.get_lib() is None:
             pytest.skip("native codec unavailable")
         rgba = self._rgba(2, 160, 328, seed=11, noise=5)
@@ -261,7 +261,7 @@ class TestRiceBatchFetch:
     def test_native_and_numpy_unpack_agree(self, monkeypatch):
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_rice_unpack", None) is None:
             pytest.skip("native rice unpack unavailable")
@@ -286,7 +286,7 @@ class TestRiceBatchFetch:
         of bucket bounds."""
         import ctypes
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_rice_unpack", None) is None:
             pytest.skip("native rice unpack unavailable")
@@ -328,7 +328,7 @@ class TestNativeForwardPack:
 
     @pytest.mark.parametrize("kind", ["smooth", "noise", "mixed"])
     def test_native_matches_numpy(self, kind, monkeypatch):
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         if native.get_lib() is None:
             pytest.skip("native codec unavailable")
         h, w = 96, 520
@@ -421,7 +421,7 @@ class TestF16RiceFetch:
     def test_native_and_numpy_unpack_agree(self, monkeypatch):
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_rice16_unpack",
                                   None) is None:
@@ -442,7 +442,7 @@ class TestF16RiceFetch:
     def test_native_rejects_corrupt_maps(self):
         import ctypes
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_rice16_unpack",
                                   None) is None:
@@ -481,7 +481,7 @@ class TestF16RiceFetch:
     def test_sharding_fetch_f16_packed_matches_raw(self):
         import jax
 
-        from libultrahdr_dev_tpu.parallel import sharding
+        from libultrahdr_dev.parallel import sharding
         rgba = self._f16(1, 96, 512, seed=3)
         dev = jax.device_put(rgba)
         stats = {}
@@ -506,7 +506,7 @@ class TestMtUnpack:
 
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         mt = getattr(lib, f"uhdr_rice{kind}_unpack_mt", None) \
             if lib else None
@@ -610,7 +610,7 @@ class TestFetchPixelsPacked:
     def test_u32_single_and_batch(self):
         import jax
 
-        from libultrahdr_dev_tpu.parallel import sharding
+        from libultrahdr_dev.parallel import sharding
         rgba = TestRctBatchFetch._rgba(
             TestRctBatchFetch(), 2, 96, 256, seed=1)
         dev = jax.device_put(rgba)
@@ -623,8 +623,8 @@ class TestFetchPixelsPacked:
     def test_f16_single_and_batch(self):
         import jax
 
-        from libultrahdr_dev_tpu.parallel import sharding
-        from libultrahdr_dev_tpu.types import PixelFormat
+        from libultrahdr_dev.parallel import sharding
+        from libultrahdr_dev.types import PixelFormat
         rgba = TestF16RiceFetch._f16(2, 96, 256, seed=2)
         dev = jax.device_put(rgba)
         np.testing.assert_array_equal(
@@ -640,7 +640,7 @@ class TestFetchPixelsPacked:
         # would re-attach alpha 0xC0000000 over SDR's 0xFF000000).
         import jax
 
-        from libultrahdr_dev_tpu.parallel import sharding
+        from libultrahdr_dev.parallel import sharding
         rng = np.random.default_rng(0)
         sdr = rng.integers(0, 1 << 24, (64, 128)).astype(np.uint32) \
             | np.uint32(0xFF000000)
@@ -653,7 +653,7 @@ class TestFetchPixelsPacked:
     def test_numpy_and_sdr_passthrough(self):
         import jax
 
-        from libultrahdr_dev_tpu.parallel import sharding
+        from libultrahdr_dev.parallel import sharding
         a = np.arange(24, dtype=np.uint8).reshape(2, 3, 4)
         stats = {}
         assert sharding.fetch_pixels_packed(a, stats) is a
@@ -719,7 +719,7 @@ class TestMedFetch:
     def test_native_and_numpy_agree(self, monkeypatch):
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_med_unpack", None) is None:
             pytest.skip("native med unpack unavailable")
@@ -742,7 +742,7 @@ class TestMedFetch:
             rgba = self._f16(1, 720, 840, seed=31, noise=0.004)
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, f"uhdr_med{kind}_unpack_mt",
                                   None) is None:
@@ -805,7 +805,7 @@ class TestMedFetch:
         (bad k code / class overflow / truncated unary bitmap)."""
         import ctypes
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_med_unpack", None) is None:
             pytest.skip("native med unpack unavailable")
@@ -875,7 +875,7 @@ class TestCostAwarePick:
     def test_env_force_and_last_pick(self, monkeypatch):
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_med_unpack", None) is None:
             pytest.skip("native med unpack unavailable")
@@ -890,7 +890,7 @@ class TestCostAwarePick:
     def test_throughput_samples_recorded(self, monkeypatch):
         import jax
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_rice_unpack", None) is None:
             pytest.skip("native unpack unavailable")
@@ -961,7 +961,7 @@ class TestFusedFetch:
         at production sizes (round-4 on-chip probe)."""
         import jax.numpy as jnp
 
-        from libultrahdr_dev_tpu.jpeg import native
+        from libultrahdr_dev.jpeg import native
         lib = native.get_lib()
         if lib is None or getattr(lib, "uhdr_med_unpack", None) is None:
             pytest.skip("native med unpack unavailable (no auto mode)")

@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 import jax
 
-from libultrahdr_dev_tpu.parallel import sharding
-from libultrahdr_dev_tpu.ops import gainmap as gm
-from libultrahdr_dev_tpu.types import GainMapMetadata
+from libultrahdr_dev.parallel import sharding
+from libultrahdr_dev.ops import gainmap as gm
+from libultrahdr_dev.types import GainMapMetadata
 
 
 def p010_batch(n=8, h=64, w=96, seed=0):
@@ -38,8 +38,8 @@ class TestBatchedEncode:
             hdr_gamut="bt2100", hdr_tf="hlg")
         # gz[0] holds zigzag DCT coefficients of the gain map; cheaper
         # check: DC of block 0 equals the gain map's mean-derived DC.
-        from libultrahdr_dev_tpu.jpeg import tables
-        from libultrahdr_dev_tpu.jpeg.dct import fdct_quant
+        from libultrahdr_dev.jpeg import tables
+        from libultrahdr_dev.jpeg.dct import fdct_quant
         q85 = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, 85)
         want = np.asarray(fdct_quant(np.asarray(gmap)[:16, :24], q85))
         got = np.asarray(gz[0]).reshape(2, 3, 64)[:2, :3].reshape(-1, 64)
@@ -51,8 +51,8 @@ class TestBatchedEncode:
         y, uv = p010_batch(n=n)
         blobs = sharding.batched_encode_api0(y, uv, mesh)
         assert len(blobs) == n
-        from libultrahdr_dev_tpu.jpegr import JpegR
-        from libultrahdr_dev_tpu.types import OutputFormat
+        from libultrahdr_dev.jpegr import JpegR
+        from libultrahdr_dev.types import OutputFormat
         jr = JpegR()
         for i in (0, n - 1):
             res = jr.decode(blobs[i], OutputFormat.HDR_LINEAR, 4.9)
@@ -60,7 +60,7 @@ class TestBatchedEncode:
         # The batched (restart-marker) bitstream differs from the
         # serial encoder's, but decodes to IDENTICAL pixels (same
         # quantized coefficients).
-        from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+        from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                                PixelFormat, RawImage)
         serial = jr.encode_api0(
             RawImage(fmt=PixelFormat.P010, width=96, height=64,
@@ -113,8 +113,8 @@ class TestBatchedApi1:
             py, puv, sy, su, sv, mesh, sdr_gamut="bt709",
             hdr_gamut="bt2100", hdr_tf="hlg", quality=95)
         assert len(blobs) == n
-        from libultrahdr_dev_tpu.jpegr import JpegR
-        from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+        from libultrahdr_dev.jpegr import JpegR
+        from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                                OutputFormat, PixelFormat,
                                                RawImage)
         jr = JpegR()
@@ -141,8 +141,8 @@ class TestBatchedDecode:
         out = sharding.batched_decode(blobs, "hdr_hlg", 4.9, mesh)
         out = np.asarray(out)
         assert out.shape[0] == n
-        from libultrahdr_dev_tpu.jpegr import JpegR
-        from libultrahdr_dev_tpu.types import OutputFormat
+        from libultrahdr_dev.jpegr import JpegR
+        from libultrahdr_dev.types import OutputFormat
         single = np.asarray(JpegR().decode(
             blobs[0], OutputFormat.HDR_HLG, 4.9).image.planes["rgba"])
         np.testing.assert_array_equal(out[0], single)
@@ -151,8 +151,8 @@ class TestBatchedDecode:
         """A batch whose frames were encoded at different qualities
         must NOT be dequantized with frame 0's tables: every frame's
         output must match its own serial decode."""
-        from libultrahdr_dev_tpu.jpegr import JpegR
-        from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+        from libultrahdr_dev.jpegr import JpegR
+        from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                                PixelFormat, RawImage)
 
         mesh = sharding.default_mesh()
@@ -168,7 +168,7 @@ class TestBatchedDecode:
                  jr.encode_api0(img1, ColorTransfer.HLG, quality=60)]
         out = np.asarray(sharding.batched_decode(blobs, "hdr_hlg", 4.9,
                                                  mesh))
-        from libultrahdr_dev_tpu.types import OutputFormat
+        from libultrahdr_dev.types import OutputFormat
         for i, blob in enumerate(blobs):
             single = np.asarray(jr.decode(
                 blob, OutputFormat.HDR_HLG, 4.9).image.planes["rgba"])
@@ -276,8 +276,8 @@ class TestDeviceHandoffDecode:
         assert handoff is None
         assert len(blobs) == n
         # The scatter-path blobs must still decode.
-        from libultrahdr_dev_tpu.jpegr import JpegR
-        from libultrahdr_dev_tpu.types import OutputFormat
+        from libultrahdr_dev.jpegr import JpegR
+        from libultrahdr_dev.types import OutputFormat
         res = JpegR().decode(blobs[0], OutputFormat.HDR_HLG, 4.9)
         assert res.width == 96 and res.height == 64
         del real

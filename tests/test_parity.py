@@ -43,7 +43,7 @@ class TestGainMapParity:
         """Gain map generation must match the reference byte-for-byte
         on the real 1280x720 fixture (bt709 SDR, bt2100 HLG HDR)."""
         _need(os.path.join(GOLDENS, "gainmap.bin"))
-        from libultrahdr_dev_tpu.ops import gainmap
+        from libultrahdr_dev.ops import gainmap
         y8, u8, v8, hy, huv = load_fixtures()
         ref = np.fromfile(os.path.join(GOLDENS, "gainmap.bin"),
                           np.uint8).reshape(180, 320)
@@ -54,7 +54,7 @@ class TestGainMapParity:
         assert md.max_content_boost == pytest.approx(1000 / 203, rel=1e-6)
 
     def test_tonemap_matches_reference_shift(self):
-        from libultrahdr_dev_tpu.ops import gainmap
+        from libultrahdr_dev.ops import gainmap
         _, _, _, hy, huv = load_fixtures()
         y8, u8, v8 = gainmap.tonemap_p010(hy, huv)
         np.testing.assert_array_equal(

@@ -5,12 +5,12 @@ with effects, etc.)."""
 import numpy as np
 import pytest
 
-from libultrahdr_dev_tpu.jpegr import JpegR
-from libultrahdr_dev_tpu.ops import editor
-from libultrahdr_dev_tpu.types import (ColorGamut, ColorTransfer,
+from libultrahdr_dev.jpegr import JpegR
+from libultrahdr_dev.ops import editor
+from libultrahdr_dev.types import (ColorGamut, ColorTransfer,
                                        OutputFormat, PixelFormat, RawImage,
                                        UhdrError)
-from libultrahdr_dev_tpu.ultrahdr import UltraHdr, UltraHdrConfig, \
+from libultrahdr_dev.ultrahdr import UltraHdr, UltraHdrConfig, \
     sniff_format
 
 
@@ -32,7 +32,7 @@ class TestSniff:
         assert sniff_format(make_jpegr()) == "jpeg_r"
 
     def test_plain_jpeg(self):
-        from libultrahdr_dev_tpu.jpeg import codec
+        from libultrahdr_dev.jpeg import codec
         blob = codec.encode_jpeg({"y": np.zeros((16, 16), np.uint8)}, 90)
         assert sniff_format(blob) == "jpeg"
 
@@ -140,7 +140,7 @@ class TestRawOutputs:
     def test_hdr_direct_matches_apply(self):
         """F16 output equals ops.gainmap.apply_gainmap on the session's
         own planes (no compress/decompress round trip)."""
-        from libultrahdr_dev_tpu.ops import gainmap as gm
+        from libultrahdr_dev.ops import gainmap as gm
 
         u = UltraHdr().add_raw(p010())
         img = u.convert_to_raw(UltraHdrConfig(
@@ -167,7 +167,7 @@ class TestHeifFlows:
     """HEIC_R/AVIF_R converter flows (ultrahdr.cpp:1049-1287)."""
 
     def setup_method(self):
-        from libultrahdr_dev_tpu.heifr import heif_available
+        from libultrahdr_dev.heifr import heif_available
         if not heif_available():
             pytest.skip("libheif not installed")
 
@@ -242,7 +242,7 @@ class TestReviewRegressions:
         """_convert_to_heif10 must carry the caller's transfer into
         gain-map generation: PQ input implies a 10000/203 max boost in
         the session metadata, not HLG's 1000/203."""
-        from libultrahdr_dev_tpu.heifr import heif_available
+        from libultrahdr_dev.heifr import heif_available
         if not heif_available():
             pytest.skip("libheif not installed")
         img = p010()
@@ -258,8 +258,8 @@ class TestReviewRegressions:
     def test_sdr_decode_without_gainmap_xmp(self):
         """SDR output must not require gain-map metadata (the gain map
         is never applied); HDR output must still demand it."""
-        from libultrahdr_dev_tpu.types import OutputFormat, UhdrError
-        from libultrahdr_dev_tpu.container import jfif, mux
+        from libultrahdr_dev.types import OutputFormat, UhdrError
+        from libultrahdr_dev.container import jfif, mux
 
         blob = JpegR().encode_api0(p010(), ColorTransfer.HLG)
         primary, gmap = mux.extract_primary_and_gainmap(blob)
@@ -287,7 +287,7 @@ class TestCodecRouting:
 
     @staticmethod
     def _needs_heif():
-        from libultrahdr_dev_tpu.heifr import heif_available
+        from libultrahdr_dev.heifr import heif_available
         if not heif_available():
             pytest.skip("libheif not installed")
 
@@ -304,8 +304,8 @@ class TestCodecRouting:
         (ultrahdr.cpp:1181-1206 -> heifr.cpp:271-279 'only encode
         heif'), not a gain-map or 10-bit container."""
         self._needs_heif()
-        from libultrahdr_dev_tpu.container import isobmff as iso
-        from libultrahdr_dev_tpu.container import libheif as lh
+        from libultrahdr_dev.container import isobmff as iso
+        from libultrahdr_dev.container import libheif as lh
         u = UltraHdr().add_raw(p010())
         out = u.convert(UltraHdrConfig(output_codec=codec,
                                        transfer=ColorTransfer.HLG))
@@ -320,7 +320,7 @@ class TestCodecRouting:
     @pytest.mark.parametrize("codec", ["heic", "avif"])
     def test_10bit_heif_is_10bit(self, codec):
         self._needs_heif()
-        from libultrahdr_dev_tpu.container import libheif as lh
+        from libultrahdr_dev.container import libheif as lh
         u = UltraHdr().add_raw(p010())
         out = u.convert(UltraHdrConfig(output_codec=codec + "_10bit",
                                        transfer=ColorTransfer.HLG,
@@ -332,7 +332,7 @@ class TestCodecRouting:
     @pytest.mark.parametrize("codec", ["heic", "avif"])
     def test_gainmap_heif_has_tmap(self, codec):
         self._needs_heif()
-        from libultrahdr_dev_tpu.container import isobmff as iso
+        from libultrahdr_dev.container import isobmff as iso
         u = UltraHdr().add_raw(p010())
         out = u.convert(UltraHdrConfig(output_codec=codec + "_r",
                                        transfer=ColorTransfer.HLG))
@@ -351,7 +351,7 @@ class TestHeifExif:
 
     @staticmethod
     def _needs_heif():
-        from libultrahdr_dev_tpu.heifr import heif_available
+        from libultrahdr_dev.heifr import heif_available
         if not heif_available():
             pytest.skip("libheif not installed")
 
@@ -359,7 +359,7 @@ class TestHeifExif:
         """EXIF round trip JPEG_R -> HEIC_R -> JPEG_R byte-identically
         (heifr.cpp:266-268 encode; heifr.cpp:324-331 decode)."""
         self._needs_heif()
-        from libultrahdr_dev_tpu.container import jfif
+        from libultrahdr_dev.container import jfif
         jr_blob = JpegR().encode_api0(p010(), ColorTransfer.HLG,
                                       quality=95, exif=self.EXIF)
         u = UltraHdr().add_image(jr_blob)
@@ -373,7 +373,7 @@ class TestHeifExif:
 
     def test_exif_on_sdr_heif_output(self):
         self._needs_heif()
-        from libultrahdr_dev_tpu.container import libheif as lh
+        from libultrahdr_dev.container import libheif as lh
         u = UltraHdr().add_raw(p010())
         u.exif = self.EXIF
         out = u.convert(UltraHdrConfig(output_codec="heic"))
@@ -381,7 +381,7 @@ class TestHeifExif:
 
     def test_exif_on_10bit_heif_output(self):
         self._needs_heif()
-        from libultrahdr_dev_tpu.container import libheif as lh
+        from libultrahdr_dev.container import libheif as lh
         u = UltraHdr().add_raw(p010())
         u.exif = self.EXIF
         out = u.convert(UltraHdrConfig(output_codec="heic_10bit",
@@ -391,7 +391,7 @@ class TestHeifExif:
 
     def test_plain_heif_ingest_reads_exif(self):
         self._needs_heif()
-        from libultrahdr_dev_tpu.container import libheif as lh
+        from libultrahdr_dev.container import libheif as lh
         rng = np.random.default_rng(5)
         planes = (rng.integers(0, 255, (64, 96), dtype=np.uint8),
                   np.full((32, 48), 128, np.uint8),

@@ -1,5 +1,5 @@
 /* Arithmetic-coding conformance oracle for the in-framework T.81
- * Annex D/F/G codec (libultrahdr_dev_tpu/jpeg/arith.py + native).
+ * Annex D/F/G codec (libultrahdr_dev/jpeg/arith.py + native).
  *
  * Uses the SYSTEM libjpeg (which has C_/D_ARITH_CODING_SUPPORTED) to
  * (a) produce arithmetic-coded JPEG test vectors (sequential SOF9 and

@@ -1,4 +1,4 @@
-// Golden oracle driver for parity testing the TPU rebuild against the
+// Golden oracle driver for parity testing the JAX rebuild against the
 // reference implementation. Lives outside the repo.
 #include <cstdio>
 #include <cstdlib>

@@ -25,8 +25,12 @@ def main():
     extra = sys.argv[1:]
     env = dict(os.environ)
     env.setdefault("JAX_PLATFORMS", "cpu")
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-    env.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+    # One cache directory for every shard (tests/conftest.py points JAX
+    # at it; the env var wins when the caller set it).
+    sys.path.insert(0, root)
+    from libultrahdr_dev.utils import jaxcache
+
+    env.setdefault(jaxcache.ENV_VAR, jaxcache.DEFAULT_DIR)
     failures = []
     t_all = time.time()
     for f in files:
